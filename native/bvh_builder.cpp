@@ -1,11 +1,11 @@
-// Native BVH builder for cg_raytracer_tpu.
+// Native BVH builder for cg_raytracer.
 //
 // Reference capability: BoundingVolumeHierarchy::createTree
-// (/root/reference/src/bounding_volume_hierarchy.cpp:42-464): binary tree,
+// (src/bounding_volume_hierarchy.cpp:42-464): binary tree,
 // longest-axis centroid-median split, depth cap, flat node vector.  This is a
 // fresh implementation around a globally reordered triangle-index buffer (leaves
 // store [first, first+count) ranges instead of copied meshes) producing the flat
-// SoA layout the TPU traversal kernels consume.  Exposed with a C ABI for ctypes.
+// SoA layout both traversals (jnp and CUDA) consume.  Exposed with a C ABI for ctypes.
 //
 // Build: make -C native  (produces libcgrt.so)
 

@@ -1,9 +1,9 @@
-// Native OBJ/MTL loader for cg_raytracer_tpu.
+// Native OBJ/MTL loader for cg_raytracer.
 //
 // Reference capability: assimp import with aiProcess_GenNormals |
-// aiProcess_Triangulate (/root/reference/src/mesh.cpp:58-141).  This is a
+// aiProcess_Triangulate (src/mesh.cpp:58-141).  This is a
 // fresh C++ implementation of the exact semantics of the pure-Python loader
-// (cg_raytracer_tpu/scene/loader.py) — one mesh per usemtl group in first-use
+// (cg_raytracer/scene/loader.py) — one mesh per usemtl group in first-use
 // order, (position-index, normal-index) vertex dedup, flat generated normals
 // with fresh vertices when the file has none, fan triangulation, negative
 // index handling, MTL Kd/Ks/Ns/d.  The Python loader stays as the fallback

@@ -12,7 +12,7 @@ structure), so it is bitwise reproducible on CPU.
 """
 from __future__ import annotations
 
-import cg_raytracer_tpu as cgrt
+import cg_raytracer as cgrt
 
 GOLDEN_NPZ = "images.npz"  # under tests/golden/
 GOLDEN_PNG_800 = "cornell_box_800.png"  # u8-quantized 800x800 cornell render

@@ -24,11 +24,11 @@ import numpy as np
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, REPO)
 
-# Importing the cg_raytracer_tpu package initializes the XLA backend (module-
+# Importing the cg_raytracer package initializes the XLA backend (module-
 # level jnp constants in ops/intersect.py), which must not happen before
 # jax.distributed.initialize.  Load the multihost module standalone first.
 _spec = importlib.util.spec_from_file_location(
-    "mh", os.path.join(REPO, "cg_raytracer_tpu", "parallel", "multihost.py"))
+    "mh", os.path.join(REPO, "cg_raytracer", "parallel", "multihost.py"))
 _mh = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_mh)
 initialize_distributed = _mh.initialize_distributed
@@ -41,8 +41,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-import cg_raytracer_tpu as cgrt  # noqa: E402
-from cg_raytracer_tpu.models.whitted import render_rows  # noqa: E402
+import cg_raytracer as cgrt  # noqa: E402
+from cg_raytracer.models.whitted import render_rows  # noqa: E402
 
 
 def main(out_dir: str) -> int:

@@ -7,13 +7,13 @@ framework reproduces the reference's output, not merely itself.
 
 Deliberately uses the reference's algorithm where ours differs:
 - triangle intersection = plane test + half-space inside-test + area-ratio
-  barycentrics (/root/reference/src/ray_tracing.cpp:13-114), NOT
+  barycentrics (src/ray_tracing.cpp:13-114), NOT
   Moller-Trumbore;
 - closest-hit = in-order primitive sweep with ray.t as the running bound and
   ``t >= ray.t`` rejection (ray_tracing.cpp:64-67, 148-151);
 - recursion: trace/shade with the depth-2 cap, miss->black, the comma-operator
   ks cutoff (only ks.z tested), eps=0.001 offsets
-  (/root/reference/src/main.cpp:160-310);
+  (src/main.cpp:160-310);
 - hard shadows per pointInShadow: closest hit from the eps-offset origin,
   blocked iff hit and t + eps < |light - point| (main.cpp:104-135);
 - soft shadows: per spherical light, diffuse/specular w.r.t. the light CENTER
@@ -80,7 +80,7 @@ def camera_rays(look_at, euler, dist, fovy, aspect, height, width):
 # --- scene extraction -------------------------------------------------------
 
 class OracleScene:
-    """Numpy copy of a cg_raytracer_tpu Scene with per-triangle materials."""
+    """Numpy copy of a cg_raytracer Scene with per-triangle materials."""
 
     def __init__(self, scene):
         self.v = np.asarray(scene.vertices, F)

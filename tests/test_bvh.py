@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cg_raytracer_tpu.ops import camera as cam_ops
-from cg_raytracer_tpu.ops.bvh import (build_bvh, bvh_num_levels, intersect_bvh,
+from cg_raytracer.ops import camera as cam_ops
+from cg_raytracer.ops.bvh import (build_bvh, bvh_num_levels, intersect_bvh,
                                       occluded_bvh, traverse_closest)
-from cg_raytracer_tpu.ops.intersect import intersect_brute, occluded_brute
+from cg_raytracer.ops.intersect import intersect_brute, occluded_brute
 
-import cg_raytracer_tpu as cgrt
+import cg_raytracer as cgrt
 
 
 @pytest.fixture(scope="module", params=["cube", "cornell_box", "monkey"])
@@ -111,8 +111,8 @@ def test_oversized_leaf_chunking():
 def test_sah_builder_invariants_and_render_parity():
     """builder='sah' honors the oracle contract (ADVICE r2): structural
     invariants hold and renders match the median build to <0.5% of pixels on
-    both the jnp 'bvh' and Pallas backends (tie-breaks on coincident-t edges
-    may differ, per the module contract)."""
+    the jnp 'bvh' backend (tie-breaks on coincident-t edges may differ, per
+    the module contract)."""
     scene = cgrt.load_scene("monkey")
     sah = build_bvh(scene, builder="sah")
     T = scene.num_triangles
@@ -127,17 +127,16 @@ def test_sah_builder_invariants_and_render_parity():
 
     import dataclasses
 
-    from cg_raytracer_tpu.models.whitted import render
+    from cg_raytracer.models.whitted import render
 
     cam = cgrt.Camera.default()
-    for backend in ("bvh", "pallas"):
-        cfg_m = cgrt.RenderConfig(width=48, height=48, backend=backend,
-                                  bvh_builder="median", pallas_brute_max_tris=0)
-        cfg_s = dataclasses.replace(cfg_m, bvh_builder="sah")
-        img_m = np.asarray(render(scene, cam, cfg_m))
-        img_s = np.asarray(render(scene, cam, cfg_s))
-        mismatch = (np.abs(img_m - img_s).max(axis=-1) > 1e-4).mean()
-        assert mismatch < 0.005, f"{backend}: {mismatch:.2%} pixels differ"
+    cfg_m = cgrt.RenderConfig(width=48, height=48, backend="bvh",
+                              bvh_builder="median")
+    cfg_s = dataclasses.replace(cfg_m, bvh_builder="sah")
+    img_m = np.asarray(render(scene, cam, cfg_m))
+    img_s = np.asarray(render(scene, cam, cfg_s))
+    mismatch = (np.abs(img_m - img_s).max(axis=-1) > 1e-4).mean()
+    assert mismatch < 0.005, f"{mismatch:.2%} pixels differ"
 
 
 def test_sah_builder_denormal_extent_does_not_crash():
@@ -160,7 +159,7 @@ def test_spheres_combined_with_bvh():
     # (bvh.cpp:850-881); a sphere in front of the mesh must win.
     import dataclasses
 
-    from cg_raytracer_tpu.scene.types import Spheres
+    from cg_raytracer.scene.types import Spheres
 
     scene = cgrt.load_scene("cube")
     spheres = Spheres(

@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.ops.camera import (camera_position, generate_ray,
+import cg_raytracer as cgrt
+from cg_raytracer.ops.camera import (camera_position, generate_ray,
                                          generate_rays, pixel_ndc,
                                          quat_from_euler, quat_rotate)
 
@@ -72,7 +72,7 @@ def test_generate_rays_shapes_and_unit_norm():
 
 
 def test_trackball_interactions():
-    from cg_raytracer_tpu.ops.camera import orbit, pan, zoom
+    from cg_raytracer.ops.camera import orbit, pan, zoom
 
     cam = cgrt.Camera.default()
     # Orbit changes euler only; pitch clamps at +-pi/2 (trackball.cpp:140).

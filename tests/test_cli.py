@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from cg_raytracer_tpu.cli import main
+from cg_raytracer.cli import main
 
 
 def test_list_scenes(capsys):
@@ -21,7 +21,7 @@ def test_render_writes_png(tmp_path, capsys):
     assert os.path.exists(out)
     txt = capsys.readouterr().out
     assert "Time to render image" in txt  # main.cpp:796 parity printout
-    from cg_raytracer_tpu.utils.image import read_image
+    from cg_raytracer.utils.image import read_image
 
     img = read_image(out)
     assert img.shape == (32, 32, 3) and img.max() > 0
@@ -33,7 +33,7 @@ def test_render_bmp_and_light_override(tmp_path):
                "--light-pos", "0", "3", "-3", "--light-color", "2", "0", "0",
                "-o", out])
     assert rc == 0 and os.path.exists(out)
-    from cg_raytracer_tpu.utils.image import read_image
+    from cg_raytracer.utils.image import read_image
 
     img = read_image(out)
     # Red-tinted light: red channel dominates everywhere it's lit.
@@ -73,7 +73,7 @@ def test_light_editor_add_remove(tmp_path):
                "--light-index", "0", "--light-radius", "0.2",
                "-o", out])
     assert rc == 0 and os.path.exists(out)
-    from cg_raytracer_tpu.utils.image import read_image
+    from cg_raytracer.utils.image import read_image
 
     img = read_image(out)
     assert img.max() > 0  # the new spherical light illuminates the box

@@ -1,9 +1,9 @@
 """Debug-data API tests (the data equivalent of the reference's debug draw, C11)."""
 import numpy as np
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.ops.bvh import build_bvh, bvh_num_levels
-from cg_raytracer_tpu.utils.debug import bvh_level_boxes, debug_trace, hit_statistics
+import cg_raytracer as cgrt
+from cg_raytracer.ops.bvh import build_bvh, bvh_num_levels
+from cg_raytracer.utils.debug import bvh_level_boxes, debug_trace, hit_statistics
 
 CFG = cgrt.RenderConfig(width=24, height=24)
 
@@ -46,8 +46,8 @@ def test_bvh_level_boxes(scenes):
 def test_render_bvh_levels(scenes):
     # Headless equivalent of the reference's per-level debugDraw slider:
     # wireframe AABBs over the dimmed render, inner red / leaf green.
-    from cg_raytracer_tpu.ops.bvh import build_bvh
-    from cg_raytracer_tpu.utils.debug import render_bvh_levels
+    from cg_raytracer.ops.bvh import build_bvh
+    from cg_raytracer.utils.debug import render_bvh_levels
 
     scene = scenes("monkey")
     bvh = build_bvh(scene)

@@ -4,8 +4,8 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.ops.effects import bloom, _box_blur_1d
+import cg_raytracer as cgrt
+from cg_raytracer.ops.effects import bloom, _box_blur_1d
 
 CFG = cgrt.RenderConfig(width=48, height=48)
 
@@ -100,7 +100,7 @@ def test_bloom_quirk_matches_reference_transcription():
     img[5, 7] = [1.5, 1.2, 0.3]   # above threshold
     img[18, 3] = [0.6, 0.6, 0.6]  # above threshold (sum 1.8)
     want = _bloom_quirk_numpy(img)
-    from cg_raytracer_tpu.ops.effects import _bloom_quirk
+    from cg_raytracer.ops.effects import _bloom_quirk
 
     got = np.asarray(_bloom_quirk(jnp.asarray(img)))
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -110,7 +110,7 @@ def test_bloom_quirk_aa_matches_reference_transcription():
     """AA+bloom quirk path (main.cpp:663-705): threshold on the running
     4-subsample sum, bright value = LAST (x+.5, y+.5) subsample, final pixel =
     in-place blur + un-antialiased center render (replacing the AA average)."""
-    from cg_raytracer_tpu.ops.effects import bloom_quirk_aa
+    from cg_raytracer.ops.effects import bloom_quirk_aa
 
     rng = np.random.default_rng(2)
     subs = {off: rng.uniform(0.0, 0.5, (20, 20, 3)).astype(np.float32)

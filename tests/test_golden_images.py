@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
+import cg_raytracer as cgrt
 from tests.golden_cases import (GOLDEN_NPZ, GOLDEN_PNG_800, cornell_800_cfg,
                                 golden_cases)
 
@@ -43,15 +43,12 @@ def test_golden_cornell_800():
     """Full-resolution (800x800, the reference's windowResolution) pin, stored
     u8-quantized: catches any region-level shift at the exact output size the
     reference renders (main.cpp:29), tolerating sub-quantum float drift."""
-    from PIL import Image
-
-    from cg_raytracer_tpu.utils.image import to_u8
+    from cg_raytracer.utils.image import read_png_u8, to_u8
 
     scene = cgrt.load_scene("cornell_box")
     img = np.asarray(cgrt.render(scene, cgrt.Camera.default(), cornell_800_cfg()))
     got = to_u8(img)
-    with Image.open(os.path.join(GOLDEN_DIR, GOLDEN_PNG_800)) as im:
-        want = np.asarray(im.convert("RGB"))  # raw u8, no re-quantization
+    want = read_png_u8(os.path.join(GOLDEN_DIR, GOLDEN_PNG_800))
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     # Borderline quantization flips allowed; real shifts are >1 level on many
     # pixels.

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.models.whitted import render_image
+import cg_raytracer as cgrt
+from cg_raytracer.models.whitted import render_image
 
 CFG = cgrt.RenderConfig(width=24, height=24, backend="brute")
 
@@ -88,7 +88,7 @@ def big_triangle_scene(ks=(0.0, 0.0, 0.0), shininess=1.0):
     the ray-plane hit points, so interior pixels carry exactly zero vertex
     gradient.  The preset single_triangle is also a sliver at the default
     camera.)"""
-    from cg_raytracer_tpu.scene.types import PointLights, make_scene
+    from cg_raytracer.scene.types import PointLights, make_scene
 
     normals = np.asarray([[0, 0, -1], [0.3, 0, -1], [0, 0.3, -1]], np.float32)
     normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
@@ -169,7 +169,7 @@ def test_grad_through_bvh_backend(scenes):
     scene = scenes("cornell_box")
     cfg_b = dataclasses.replace(CFG, backend="brute")
     cfg_v = dataclasses.replace(CFG, backend="bvh")
-    from cg_raytracer_tpu.ops.bvh import build_bvh
+    from cg_raytracer.ops.bvh import build_bvh
 
     bvh = build_bvh(scene)
     cam = cgrt.Camera.default()
@@ -178,7 +178,7 @@ def test_grad_through_bvh_backend(scenes):
     def loss(kd, cfg, bvh_):
         mats = dataclasses.replace(scene.materials, kd=kd)
         s = dataclasses.replace(scene, materials=mats)
-        from cg_raytracer_tpu.models.whitted import make_backend
+        from cg_raytracer.models.whitted import make_backend
 
         backend = make_backend(s, cfg, bvh=bvh_)
         return jnp.sum(render_image(s, cam, cfg, backend=backend, key=key))
@@ -209,13 +209,13 @@ def test_grad_two_phase_matches_one_phase():
     # differentiable shade chain (models/whitted.py trace_rays).  Forward
     # images and parameter gradients must match the one-phase path (the
     # restructure only moves the partial-eval boundary).
-    from cg_raytracer_tpu.optim.inverse import (apply_material_params,
+    from cg_raytracer.optim.inverse import (apply_material_params,
                                                 material_params)
 
     scene = cgrt.load_scene("cornell_box")
     cam = cgrt.Camera.default()
     key = jax.random.PRNGKey(3)
-    cfg_off = cgrt.RenderConfig(width=24, height=24, backend="pallas",
+    cfg_off = cgrt.RenderConfig(width=24, height=24, backend="bvh",
                                 grad_two_phase="off")
     cfg_on = dataclasses.replace(cfg_off, grad_two_phase="on")
     params = material_params(scene)

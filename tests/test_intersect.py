@@ -2,12 +2,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.ops.intersect import (intersect_aabb, intersect_brute,
+import cg_raytracer as cgrt
+from cg_raytracer.ops.intersect import (intersect_aabb, intersect_brute,
                                             intersect_spheres_one,
                                             moller_trumbore, occluded_brute,
                                             reconstruct_hit)
-from cg_raytracer_tpu.scene.types import PointLights, make_scene
+from cg_raytracer.scene.types import PointLights, make_scene
 
 V0 = jnp.asarray([0.0, 0.0, 0.0])
 V1 = jnp.asarray([1.0, 0.0, 0.0])
@@ -134,7 +134,7 @@ def test_ray_t_bound_semantics():
 
 
 def test_plane_intersector():
-    from cg_raytracer_tpu.ops.intersect import intersect_plane
+    from cg_raytracer.ops.intersect import intersect_plane
 
     n = jnp.asarray([0.0, 1.0, 0.0])
     o = jnp.asarray([[0.0, 2.0, 0.0], [0.0, 2.0, 0.0], [0.0, 1.0, 0.0],

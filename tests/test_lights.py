@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.scene import lights as le
+import cg_raytracer as cgrt
+from cg_raytracer.scene import lights as le
 
 
 def test_add_point_light(scenes):

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from cg_raytracer_tpu.scene.loader import load_mtl, load_obj
-from cg_raytracer_tpu.scene.presets import default_data_dir
+from cg_raytracer.scene.loader import load_mtl, load_obj
+from cg_raytracer.scene.presets import default_data_dir
 
 DATA = default_data_dir()
 

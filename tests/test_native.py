@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu import native
-from cg_raytracer_tpu.ops import camera as cam_ops
-from cg_raytracer_tpu.ops.bvh import build_bvh, intersect_bvh
-from cg_raytracer_tpu.ops.intersect import intersect_brute
+import cg_raytracer as cgrt
+from cg_raytracer import native
+from cg_raytracer.ops import camera as cam_ops
+from cg_raytracer.ops.bvh import build_bvh, intersect_bvh
+from cg_raytracer.ops.intersect import intersect_brute
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="libcgrt.so not built / no toolchain")
@@ -57,8 +57,8 @@ def test_native_obj_loader_matches_python():
     import glob
     import os
 
-    from cg_raytracer_tpu.scene.loader import load_obj
-    from cg_raytracer_tpu.scene.presets import default_data_dir
+    from cg_raytracer.scene.loader import load_obj
+    from cg_raytracer.scene.presets import default_data_dir
 
     paths = sorted(glob.glob(os.path.join(default_data_dir(), "*.obj")))
     assert paths, "no data files found"

@@ -5,9 +5,9 @@ import os
 import jax
 import numpy as np
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.models.whitted import render_image
-from cg_raytracer_tpu.optim.inverse import (apply_material_params,
+import cg_raytracer as cgrt
+from cg_raytracer.models.whitted import render_image
+from cg_raytracer.optim.inverse import (apply_material_params,
                                             load_checkpoint, material_params,
                                             optimize, save_checkpoint)
 
@@ -96,7 +96,7 @@ def test_scanned_loop_checkpoint_boundaries(tmp_path, scenes):
              checkpoint_path=ck, checkpoint_every=3, resume=False)
     import optax
 
-    from cg_raytracer_tpu.optim.inverse import material_params
+    from cg_raytracer.optim.inverse import material_params
 
     params = material_params(scene)
     opt_state = optax.adam(1e-2).init(params)
@@ -110,7 +110,7 @@ def test_optimize_recovers_vertex_translation(scenes):
     # gradients (brute backend: the oracle can never go stale).
     import jax.numpy as jnp
 
-    from cg_raytracer_tpu.optim.inverse import (apply_vertex_params,
+    from cg_raytracer.optim.inverse import (apply_vertex_params,
                                                 vertex_params)
     import jax.numpy as jnp
 

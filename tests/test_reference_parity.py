@@ -13,20 +13,13 @@ reproducible raytracer output — `renderedPhotos/final4.png` is a 1920x1080
 the reference code, whose texture sampling is a stub returning 0,
 src/image.cpp:39-43, and whose resolution is 800x800, main.cpp:29), and the
 `photosDuringDev/*.jpg` files are dev-stage screenshots at unknown cameras
-with JPEG loss.  A structural check against one of those screenshots is below;
-strict per-pixel parity is established against the oracle.
+with JPEG loss.  Strict per-pixel parity is established against the oracle.
 """
-import dataclasses
-import os
-
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
+import cg_raytracer as cgrt
 from tests.reference_oracle import render_reference
-
-REF_SHOT = "/root/reference/photosDuringDev/shading/render-box_with_mirror.jpg"
-
 
 def _ours(scene, w, h, **cfg_kw):
     cfg = cgrt.RenderConfig(width=w, height=h, backend="brute",
@@ -94,38 +87,3 @@ def test_quirks_flags_match_oracle_exactly_where_clean_mode_differs(scenes):
         cgrt.RenderConfig(width=size, height=size, backend="brute",
                           anti_aliasing=True)))
     np.testing.assert_allclose(quirk_aa, clean * 0.8, atol=1e-5)
-
-
-@pytest.mark.skipif(not os.path.exists(REF_SHOT),
-                    reason="reference dev screenshot unavailable")
-def test_structural_agreement_with_reference_screenshot(scenes):
-    """Coarse agreement with an actual reference-produced render: the cornell
-    box dev screenshot (unknown camera, JPEG, dev-stage shading) shows a red
-    left wall and green right wall; a frontal render of our scene must show
-    the same layout.  (Strict per-pixel parity vs this file is impossible —
-    see module docstring.)"""
-    from PIL import Image
-
-    with Image.open(REF_SHOT) as im:
-        ref = np.asarray(im.convert("RGB"), np.float32) / 255.0
-
-    def reddish_left_greenish_right(img):
-        h, w, _ = img.shape
-        left = img[:, : w // 3].reshape(-1, 3)
-        right = img[:, -w // 3:].reshape(-1, 3)
-        red = ((left[:, 0] > 0.25) & (left[:, 0] > 2 * left[:, 1])
-               & (left[:, 0] > 2 * left[:, 2])).mean()
-        green = ((right[:, 1] > 0.25) & (right[:, 1] > 2 * right[:, 0])
-                 & (right[:, 1] > 2 * right[:, 2])).mean()
-        return red, green
-
-    r_ref, g_ref = reddish_left_greenish_right(ref)
-    assert r_ref > 0.01 and g_ref > 0.01  # sanity: the screenshot shows both
-
-    scene = scenes("cornell_box")
-    cam = cgrt.Camera.default(euler_deg=(0.0, 0.0, 0.0), dist=3.0)
-    img = np.asarray(cgrt.render(
-        scene, cam, cgrt.RenderConfig(width=96, height=96, backend="brute")))
-    r_ours, g_ours = reddish_left_greenish_right(img)
-    assert r_ours > 0.01, "no red left wall in frontal render"
-    assert g_ours > 0.01, "no green right wall in frontal render"

@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-import cg_raytracer_tpu as cgrt
+import cg_raytracer as cgrt
 from tests.conftest import assert_images_close
 
 CFG64 = cgrt.RenderConfig(width=64, height=64)
@@ -70,7 +70,7 @@ def test_shadowing_darkens(scenes):
 
 def test_point_light_shadow_occlusion():
     # Two parallel triangles; light behind the second one -> first is shadowed.
-    from cg_raytracer_tpu.scene.types import PointLights, make_scene
+    from cg_raytracer.scene.types import PointLights, make_scene
 
     # Winding chosen so the face normal cross(v1-v0, v2-v0) = (0,0,-1) faces the
     # camera (no facing flip) and matches the vertex normals.
@@ -139,25 +139,20 @@ def test_render_chunked_matches(scenes):
 
 def test_table2_custom_presets(scenes):
     # Report Table 2's Teacup/Donut scenes: procedural stand-ins at the reported
-    # triangle counts.  Donut exceeds the all-VMEM Pallas cap and must route to
-    # the HBM-streaming structure in build_accel.
-    from cg_raytracer_tpu.models.whitted import build_accel
-    from cg_raytracer_tpu.ops.pallas_bvh import HBMBVH, VMEM_MAX_TRIS
-    from cg_raytracer_tpu.ops.pallas_bvh4 import HBMBVH4
+    # triangle counts.  Both are past the brute-force cap, so 'auto' routes
+    # them to a BVH backend and build_accel builds (and memoizes) the tree.
+    from cg_raytracer.models.whitted import build_accel
+    from cg_raytracer.ops.bvh import BVH
 
     teacup = scenes("teacup")
     assert teacup.num_triangles == 48_000
     donut = scenes("donut")
     assert donut.num_triangles == 320_000
-    assert donut.num_triangles > VMEM_MAX_TRIS
-    accel = build_accel(donut, cgrt.RenderConfig(width=8, height=8, backend="pallas"))
-    # Round-4 auto: the 4-wide HBM-streaming structure (bvh_wide_hbm='4');
-    # '2' still builds the binary one.
-    assert isinstance(accel, HBMBVH4)
-    accel2 = build_accel(donut, cgrt.RenderConfig(width=8, height=8,
-                                                  backend="pallas",
-                                                  bvh_wide_hbm="2"))
-    assert isinstance(accel2, HBMBVH)
+    cfg = cgrt.RenderConfig(width=8, height=8)
+    assert cfg.resolve_backend(donut.num_triangles, platform="cpu") == "bvh"
+    accel = build_accel(donut, cfg)
+    assert isinstance(accel, BVH)
+    assert build_accel(donut, cfg) is accel
     # Teacup renders something sensible through the jnp BVH backend.
     img = _render(teacup, cgrt.RenderConfig(width=32, height=32, backend="bvh"))
     assert img.max() > 0.0
@@ -166,46 +161,3 @@ def test_table2_custom_presets(scenes):
 # Golden regression moved to tests/test_golden_images.py: full [H,W,3]
 # per-pixel pins (default + reference_quirks + effects) replace the round-1
 # scalar mean-brightness checks.
-
-
-def test_remat_shade_matches_values_and_grads():
-    """remat_shade='on' recomputes the per-level shade in the backward pass —
-    values and gradients must match the default path exactly (same math,
-    different residual policy)."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    import cg_raytracer_tpu as cgrt
-    from cg_raytracer_tpu.models.whitted import render_image, make_backend
-    from cg_raytracer_tpu.optim.inverse import (apply_material_params,
-                                                material_params)
-
-    scene = cgrt.load_scene("cornell_box")
-    cam = cgrt.Camera.default()
-    base = cgrt.RenderConfig(width=24, height=24, backend="pallas")
-    params = material_params(scene)
-
-    def loss(cfg):
-        def f(p):
-            s = apply_material_params(scene, p)
-            be = make_backend(s, cfg)
-            return jnp.mean(render_image(s, cam, cfg, backend=be,
-                                         key=jax.random.PRNGKey(0)))
-        return f
-
-    for remat in ("off", "on"):
-        cfg = dataclasses.replace(base, remat_shade=remat)
-        be = make_backend(scene, cfg)
-        assert be.bounce is not None  # the remat-eligible path
-    v_off, g_off = jax.value_and_grad(loss(dataclasses.replace(
-        base, remat_shade="off")))(params)
-    v_on, g_on = jax.value_and_grad(loss(dataclasses.replace(
-        base, remat_shade="on")))(params)
-    assert float(v_off) == float(v_on)
-    for a, b in zip(jax.tree.leaves(g_off), jax.tree.leaves(g_on)):
-        import numpy as np
-
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6,
-                                   atol=1e-7)

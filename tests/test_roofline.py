@@ -1,25 +1,29 @@
-"""Roofline model sanity (utils/roofline.py, VERDICT r1 item 2).
+"""Roofline model sanity (utils/roofline.py).
 
-The model's job is to make the BASELINE "≥85% of roofline" target falsifiable:
-its work counts must track the kernels' actual structure and its ideal times
-must be physically sensible bounds.
+Its work counts must track the oracles' actual structure, its ideal times must
+be physically sensible bounds, and its peaks must be the published ones.
 """
-import jax
-import jax.numpy as jnp
 import pytest
 
-from cg_raytracer_tpu import Camera, load_scene
-from cg_raytracer_tpu.ops.bvh import build_bvh
-from cg_raytracer_tpu.ops.camera import generate_rays
-from cg_raytracer_tpu.utils import roofline as rl
+from cg_raytracer import Camera, load_scene
+from cg_raytracer.ops.bvh import build_bvh
+from cg_raytracer.ops.camera import generate_rays
+from cg_raytracer.utils import roofline as rl
+
+H100 = rl.device_peaks("NVIDIA H100 80GB HBM3")
 
 
 def test_chip_model_matches_public_specs():
-    # The clock is derived from the published 197 bf16 TFLOP/s.
-    assert rl.V5E.mxu_flops_bf16 == pytest.approx(
-        2 * 128 * 128 * 4 * rl.V5E.clock_hz)
-    assert 5e12 < rl.V5E.vpu_flops < 8e12  # ~6.1 TF f32
-    assert rl.V5E.hbm_bytes_per_s == pytest.approx(819e9)
+    # NVIDIA's H100 SXM data sheet, dense rates.
+    assert H100.f32_flops == pytest.approx(67e12)
+    assert H100.bf16_tensor_flops == pytest.approx(989e12)
+    assert H100.hbm_bytes_per_s == pytest.approx(3.35e12)
+    assert "data sheet" in H100.source
+
+
+def test_unknown_device_kind_raises():
+    with pytest.raises(ValueError, match="no published peaks"):
+        rl.device_peaks("cpu")
 
 
 def test_brute_flops_scale_with_work():
@@ -27,7 +31,7 @@ def test_brute_flops_scale_with_work():
     assert base > 2 * 32 * rl.MT_FLOPS  # at least the two closest sweeps
     # Doubling triangles roughly doubles the sweep-dominated count.
     assert rl.brute_flops_per_ray(64, 1, 2) > 1.8 * base
-    # Backward adds the jnp VJP replay but not kernel work.
+    # Backward adds the jnp VJP replay but not oracle work.
     bwd = rl.brute_flops_per_ray(32, 1, 2, include_bwd=True)
     assert base < bwd < base + 3 * 2 * (
         rl.RECON_FLOPS + rl.SHADE_FLOPS + rl.BOUNCE_MISC_FLOPS)
@@ -35,19 +39,20 @@ def test_brute_flops_scale_with_work():
 
 def test_headline_roofline_is_a_bound():
     # cornell_box headline config: 1024^2, 32 tris, 1 light, 2 bounces, fwd+bwd.
-    info = rl.headline_roofline(1024, 1024, 32, 1, 2, include_bwd=True)
-    assert info["bound"] in ("compute (VPU)", "memory (HBM)")
-    # The ideal time must be positive and below any plausible measured time
-    # (BENCH_NOTES: measured 14.1 ms/frame) — i.e. the bound is attainable-side.
-    assert 0 < info["ideal_seconds"] < 14.1e-3
-    # And not absurdly low: the sweep work alone is ~9 GFLOP.
+    info = rl.headline_roofline(1024, 1024, 32, 1, 2, include_bwd=True,
+                                peaks=H100)
+    assert info["bound"] in ("compute (float32)", "memory (HBM)")
+    assert info["peaks"] == H100.name
+    # The sweep work alone is ~9 GFLOP, so the ideal frame is >0.1 ms on a
+    # 67 TFLOP/s part and far below a second.
     assert info["gflops_per_frame"] > 5.0
+    assert 1e-4 < info["ideal_seconds"] < 1.0
 
 
 def test_pct_of_roofline_direction():
     flops, byts = 1e9, 1e6
-    ideal, _ = rl.roofline_seconds(flops, byts)
-    assert rl.pct_of_roofline(2 * ideal, flops, byts) == pytest.approx(50.0)
+    ideal, _ = rl.roofline_seconds(flops, byts, H100)
+    assert rl.pct_of_roofline(2 * ideal, flops, byts, H100) == pytest.approx(50.0)
 
 
 def test_bvh_visit_stats_counts_real_traversals():
@@ -59,16 +64,16 @@ def test_bvh_visit_stats_counts_real_traversals():
     # Every primary ray at least tests the root's children.
     assert stats["mean_internal_visits"] >= 1.0
     assert stats["max_internal_visits"] >= stats["mean_internal_visits"]
-    # Rays that hit the monkey must sweep at least one leaf row.
-    assert stats["mean_leaf_rows"] > 0.1
+    # Rays that hit the monkey must test at least one triangle.
+    assert stats["mean_tri_tests"] > 0.1
     # Far fewer nodes than the whole tree (log-ish traversal, not a sweep).
     assert stats["max_internal_visits"] < bvh.left.shape[0]
 
 
 def test_bvh_flops_use_measured_stats():
-    f = rl.bvh_flops_per_ray(internal_visits=20.0, leaf_rows=3.0,
+    f = rl.bvh_flops_per_ray(internal_visits=20.0, tri_tests=12.0,
                              num_lights=1, bounces=1)
     assert f > 20 * rl.INTERNAL_VISIT_FLOPS
-    assert f > 3 * rl.TRIS_PER_ROW * rl.MT_FLOPS
+    assert f > 12 * rl.MT_FLOPS
     # More traversal work => more flops, monotonic.
-    assert rl.bvh_flops_per_ray(40.0, 6.0, 1, 1) > 1.5 * f
+    assert rl.bvh_flops_per_ray(40.0, 24.0, 1, 1) > 1.5 * f

@@ -5,9 +5,9 @@ import numpy as np
 import optax
 import pytest
 
-import cg_raytracer_tpu as cgrt
-from cg_raytracer_tpu.optim.inverse import apply_material_params, material_params
-from cg_raytracer_tpu.parallel.sharding import (make_mesh, make_train_step,
+import cg_raytracer as cgrt
+from cg_raytracer.optim.inverse import apply_material_params, material_params
+from cg_raytracer.parallel.sharding import (make_mesh, make_train_step,
                                                 replicated, row_sharded,
                                                 sharded_render)
 
@@ -48,7 +48,7 @@ def test_sample_axis_sharding_matches_single_device(scenes, shape):
     # 2-D ('rays','samples') mesh: soft-shadow sample chunks split over the
     # second axis; per-(light, chunk) keys are mesh-independent, so the result
     # is identical to the unsharded render for any mesh shape.
-    from cg_raytracer_tpu.parallel.sharding import (make_mesh2,
+    from cg_raytracer.parallel.sharding import (make_mesh2,
                                                     sample_sharded_render)
 
     scene = scenes("cornell_box_spherical_light")
